@@ -1,4 +1,4 @@
-"""brotlig_tpu: a TPU-native Brotli-G codec (JAX/Pallas).
+"""brotlig_tpu: a Brotli-G codec on JAX devices (XLA + a Triton kernel).
 
 Public API mirrors the reference C API (inc/BrotliG.h):
 encode / decode / decompressed_size / max_compressed_size.

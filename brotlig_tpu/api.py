@@ -1,7 +1,7 @@
 """Public Brotli-G API (mirrors the reference C API, inc/BrotliG.h:25-26).
 
-encode()            -> native/TPU encoder by backend (all support feedback)
-decode()            -> TPU decoder when available, else CPU oracle
+encode()            -> native/device encoder by backend (all support feedback)
+decode()            -> device decoder on the default JAX device
 decode_cpu()        -> CPU oracle decoder
 decompressed_size() -> header-only size query
 max_compressed_size() -> one-shot output buffer bound
@@ -22,28 +22,30 @@ def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
     """Compress a Brotli-G container.
 
     backend: "cpu" (native C++ page-parallel encoder, best ratio),
-    "tpu" (device bulk match finding + native serialization), "tpu-full"
-    (match finding AND serialization on device), or "auto" (cpu).
-    quality >= 10 selects the optimal-parse tier (native two-pass DP /
-    device windowed DP); lower values use the greedy parse. The "tpu"
-    hybrid always parses greedily (its serializer is the native packer).
+    "device" (device bulk match finding + native serialization),
+    "device-full" (match finding AND serialization on device), or "auto"
+    (cpu). quality >= 10 selects the optimal-parse tier (native two-pass
+    DP / device windowed DP); lower values use the greedy parse. The
+    "device" hybrid always parses greedily (its serializer is the native
+    packer).
     `feedback(type, text) -> bool` mirrors BROTLIG_Feedback_Proc; returning
     True aborts (errors.Aborted) on every backend: the native pool calls it
     per encoded page, the device paths per page batch.
 
     Note: with dc_params set, "auto" routes through the Python encoder
-    (the native encoder has no preconditioning path); use a TPU backend
-    for device-side preconditioning."""
-    if backend in ("tpu", "tpu-full"):
-        if backend == "tpu-full":
-            from .ops.encode_pack import encode_stream_tpu_full
-            return encode_stream_tpu_full(data, page_size=page_size,
-                                          dc_params=dc_params,
-                                          feedback=feedback,
-                                          quality=quality)
-        from .ops.encode import encode_stream_tpu
-        return encode_stream_tpu(data, page_size=page_size,
-                                 dc_params=dc_params, feedback=feedback)
+    (the native encoder has no preconditioning path); use a device
+    backend for device-side preconditioning."""
+    if backend == "device-full":
+        from .ops.encode_pack import encode_stream_device_full
+        return encode_stream_device_full(data, page_size=page_size,
+                                         dc_params=dc_params,
+                                         feedback=feedback, quality=quality)
+    if backend == "device":
+        from .ops.encode import encode_stream_device
+        return encode_stream_device(data, page_size=page_size,
+                                    dc_params=dc_params, feedback=feedback)
+    if backend not in ("auto", "cpu"):
+        raise ValueError(f"unknown backend {backend!r}")
     if dc_params is None:
         from .format.errors import Aborted
         try:
@@ -75,33 +77,20 @@ def decompressed_size(data: bytes) -> int:
     return _cpu.decompressed_size(data)
 
 
-def decode(data: bytes, backend: str = "auto", feedback=None,
-           variant: str | None = None, sweep_cw: int = 1024) -> bytes:
+def decode(data: bytes, backend: str = "auto", feedback=None) -> bytes:
     """Decode a Brotli-G container.
 
-    backend: "tpu" forces the JAX path, "cpu" the scalar oracle, "auto"
-    prefers TPU when a jax device is available.
+    backend: "device" (or "auto") decodes on the default JAX device, "cpu"
+    with the native decoder / scalar oracle. The device path never falls
+    back to the CPU: its failures raise. The platform picks the device
+    route (ops.decode.resolve_route).
     feedback: optional callable(progress 0..100) -> bool invoked per device
-    batch on the TPU path (decode analog of BROTLIG_Feedback_Proc,
+    batch (decode analog of BROTLIG_Feedback_Proc,
     BrotligDecoder.cpp:318-325); returning True raises errors.Aborted.
-    variant / sweep_cw: TPU kernel selection (see ops.decode.decode_pages);
-    callers that validated a specific kernel rung (bench ladder) pass it
-    through so every decode in the process uses the proven kernel.
     """
     if backend == "cpu":
         return decode_cpu(data)
-    try:
-        from .ops.decode import decode_stream_jax
-    except Exception:
-        if backend == "tpu":
-            raise
-        return decode_cpu(data)
-    if backend in ("tpu", "auto"):
-        try:
-            return decode_stream_jax(data, feedback=feedback,
-                                     variant=variant, sweep_cw=sweep_cw)
-        except NotImplementedError:
-            if backend == "tpu":
-                raise
-            return decode_cpu(data)
-    raise ValueError(f"unknown backend {backend!r}")
+    if backend not in ("auto", "device"):
+        raise ValueError(f"unknown backend {backend!r}")
+    from .ops.decode import decode_stream_jax
+    return decode_stream_jax(data, feedback=feedback)

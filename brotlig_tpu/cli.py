@@ -18,18 +18,19 @@ FORMATS = {"bc1": C.DATA_FORMAT_BC1, "bc2": C.DATA_FORMAT_BC2,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="brotlig", description="Brotli-G codec (TPU-native)")
+        prog="brotlig", description="Brotli-G codec (JAX device decoder)")
     p.add_argument("input")
     p.add_argument("output", nargs="?")
     p.add_argument("--page-size", type=int, default=C.DEFAULT_PAGE_SIZE,
                    help="page size in bytes (32768/65536/131072)")
-    p.add_argument("--backend", choices=["auto", "cpu", "tpu"],
+    p.add_argument("--backend", choices=["auto", "cpu", "device"],
                    default="auto", help="decode backend")
     p.add_argument("--encode-backend",
-                   choices=["auto", "cpu", "tpu", "tpu-full"],
+                   choices=["auto", "cpu", "device", "device-full"],
                    default="auto",
-                   help="encode backend (tpu: device match finding; "
-                        "tpu-full: device match finding + serialization)")
+                   help="encode backend (device: device match finding; "
+                        "device-full: device match finding + "
+                        "serialization)")
     p.add_argument("--num-repeat", type=int, default=1,
                    help="repeat codec N times and report the best")
     p.add_argument("--compare-brotli", action="store_true",

@@ -2,7 +2,7 @@
 
 These constants define the Brotli-G bitstream format and must match the
 reference SDK exactly (reference: inc/common/BrotligConstants.h). They are the
-single source of truth for every layer of this package (refimpl oracle, TPU
+single source of truth for every layer of this package (refimpl oracle, device
 kernels, runtime).
 """
 

@@ -4,7 +4,7 @@ The Brotli-G command model is plain Brotli (RFC 7932 section 5) plus a
 sentinel symbol (704) and 23 insert-only tail codes (705..727). The reference
 ships these as a literal LUT (inc/common/BrotligCommandLut.h); here every
 table is derived programmatically from the spec formulas so that the encoder,
-the refimpl decoder and the TPU kernels all share one generated source.
+the refimpl decoder and the device kernels all share one generated source.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ The reference conditions with an explicit gather (BrotligDataConditioner.cpp)
 and deconditions with a closed-form per-byte address transform
 (PageDecoder.cpp:406-444). Here both directions use one precomputed index
 map `cond_map` where `conditioned[i] == original[cond_map[i]]`, built with
-vectorized NumPy from the same closed form — the TPU path reuses it as a
+vectorized NumPy from the same closed form — the device path reuses it as a
 gather/scatter index array.
 """
 from __future__ import annotations

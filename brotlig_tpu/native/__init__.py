@@ -15,8 +15,7 @@ from numpy import ctypeslib as np_ctypeslib
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "brotlig_core.cpp"),
-         os.path.join(_DIR, "brotlig_encode.cpp"),
-         os.path.join(_DIR, "brotlig_stage.cpp")]
+         os.path.join(_DIR, "brotlig_encode.cpp")]
 _LIB = os.path.join(_DIR, "libbrotlig_core.so")
 _lock = threading.Lock()
 _lib = None
@@ -83,13 +82,6 @@ def _load():
                 ctypes.c_int, u32p, u32p, u32p, ctypes.c_uint64,
                 ctypes.POINTER(ctypes.c_uint64),
                 ctypes.POINTER(ctypes.c_uint64)]
-            u64p = np_ctypeslib.ndpointer(dtype="uint64", flags="C")
-            i32p = np_ctypeslib.ndpointer(dtype="int32", flags="C")
-            lib.blg_stage_pages.restype = ctypes.c_int
-            lib.blg_stage_pages.argtypes = [
-                ctypes.c_char_p, ctypes.c_uint64, u64p, u64p,
-                ctypes.c_uint32, ctypes.c_uint32, i32p, i32p,
-                ctypes.c_int]
             _lib = lib
         except Exception as e:  # toolchain missing / build failure
             _build_error = str(e)
@@ -239,29 +231,6 @@ def parse_page(data: bytes, max_chain: int = 64, quality: int = 11):
         raise ValueError(f"parse failed (rc={rc})")
     k = ncmds.value
     return ins[:k], cpy[:k], dist[:k], int(tail.value)
-
-
-def stage_pages(payload: bytes, offsets, sizes, wl: int,
-                num_threads: int = 0):
-    """Parse page headers + size tables and build the word-round-robin
-    interleaved decode buffer on the host (the TPU kernels' input layout;
-    see brotlig_stage.cpp). Returns (buf3 [wl*32//128, P, 128] int32,
-    npd [P, 4] int32 = (npostfix, ndirect, isdelta, 0))."""
-    import numpy as np
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"native stager unavailable: {_build_error}")
-    offs = np.ascontiguousarray(offsets, dtype=np.uint64)
-    szs = np.ascontiguousarray(sizes, dtype=np.uint64)
-    P = len(offs)
-    wc = wl * 32 // 128
-    buf3 = np.zeros((wc, P, 128), dtype=np.int32)
-    npd = np.zeros((P, 4), dtype=np.int32)
-    rc = lib.blg_stage_pages(payload, len(payload), offs, szs, P, wl,
-                             buf3, npd, num_threads)
-    if rc != 0:
-        raise ValueError("stage_pages: page bounds outside payload")
-    return buf3, npd
 
 
 def decode_page(data: bytes, out_size: int) -> bytes:

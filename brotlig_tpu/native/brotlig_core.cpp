@@ -1,4 +1,4 @@
-// Native CPU Brotli-G decoder: the host-side runtime of the TPU framework.
+// Native CPU Brotli-G decoder: the host-side runtime of the JAX framework.
 //
 // Fresh implementation of the Brotli-G format (parity references:
 // src/decoder/PageDecoder.cpp, src/decoder/BrotligHuffmanTable.cpp,

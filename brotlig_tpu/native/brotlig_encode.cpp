@@ -1209,7 +1209,7 @@ std::vector<uint8_t> EncodePage(const uint8_t* data, uint32_t n,
 
 extern "C" {
 
-// Serialize one page from externally-found commands (e.g. the TPU bulk
+// Serialize one page from externally-found commands (e.g. the device bulk
 // matcher). The page is stored raw when not compressible (signalled by
 // *out_size == n). Returns 0 on success.
 int blg_encode_page_cmds(const uint8_t* data, uint64_t n, int is_last,

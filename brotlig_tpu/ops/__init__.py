@@ -1,1 +1,1 @@
-"""TPU compute path: JAX/Pallas decode/encode kernels."""
+"""Device compute path: JAX decode/encode programs and the Triton kernel."""

@@ -1,8 +1,8 @@
 """Branchless arithmetic forms of the RFC 7932 command/length tables.
 
-On this backend even a gather from a 24-entry constant table costs ~200us
-inside a loop, so the insert/copy code tables (format/lut.py) are re-derived
-here as where-ladders over vector registers. Verified exhaustively against
+The insert/copy code tables (format/lut.py) are re-derived here as
+where-ladders over vector registers, so the decode loops (XLA route and
+the Triton kernel alike) need no table gather per command. Verified exhaustively against
 the table forms in tests/test_ops_decode.py.
 """
 from __future__ import annotations

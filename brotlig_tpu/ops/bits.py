@@ -1,6 +1,6 @@
 """Vectorized LSB-first bit reads over batched uint32 word buffers.
 
-The TPU decoder keeps each page's compressed bytes as a row of uint32 words
+The device decoder keeps each page's compressed bytes as a row of uint32 words
 and addresses them with absolute bit positions per (page, lane). A read
 gathers two words and funnel-shifts — the vector analog of the reference's
 64-bit hold (inc/common/BrotligDeswizzler.h:139-192) without mutable state.
@@ -30,30 +30,6 @@ def peek_bits(words: jnp.ndarray, bitpos: jnp.ndarray, n_bits) -> jnp.ndarray:
     sh = (bitpos & 31).astype(jnp.uint32)
     w0 = jnp.take_along_axis(words, word_idx, axis=-1)
     w1 = jnp.take_along_axis(words, word_idx + 1, axis=-1)
-    lo = w0 >> sh
-    hi = jnp.where(sh == 0, jnp.uint32(0), w1 << (jnp.uint32(32) - sh))
-    window = lo | hi
-    n = jnp.asarray(n_bits, dtype=jnp.uint32)
-    mask = jnp.where(n >= 32, jnp.uint32(0xFFFFFFFF),
-                     (jnp.uint32(1) << n) - jnp.uint32(1))
-    return jnp.where(n == 0, jnp.uint32(0), window & mask)
-
-
-def peek_bits_fused(words: jnp.ndarray, bitpos: jnp.ndarray,
-                    n_bits) -> jnp.ndarray:
-    """Like peek_bits but with ONE gather (idx and idx+1 stacked).
-
-    On this backend each gather op carries ~200us fixed cost, so halving
-    the gather count in hot loops matters far more than the extra
-    concat/slice ops.
-    """
-    word_idx = (bitpos >> 5).astype(jnp.int32)
-    K = word_idx.shape[-1]
-    idx2 = jnp.concatenate([word_idx, word_idx + 1], axis=-1)
-    g = jnp.take_along_axis(words, idx2, axis=-1)
-    w0 = g[..., :K]
-    w1 = g[..., K:]
-    sh = (bitpos & 31).astype(jnp.uint32)
     lo = w0 >> sh
     hi = jnp.where(sh == 0, jnp.uint32(0), w1 << (jnp.uint32(32) - sh))
     window = lo | hi

@@ -1,4 +1,4 @@
-"""TPU bulk-greedy LZ77 match finding (the encode-side compute kernel).
+"""Device bulk-greedy LZ77 match finding (the encode-side compute kernel).
 
 The reference encoder's hot loop is sequential Zopfli match finding
 (PageEncoder.cpp:87-147). A sequential parse cannot map to wide vectors, so
@@ -428,13 +428,13 @@ def find_commands(pages: jnp.ndarray, in_sizes: jnp.ndarray, max_cmds: int,
 
 
 # ---------------------------------------------------------------------------
-# Stream-level wrapper: TPU match finding + native serialization
+# Stream-level wrapper: device match finding + native serialization
 # ---------------------------------------------------------------------------
 
-def encode_stream_tpu(data: bytes, page_size: int = 65536,
-                      batch_pages: int = 64, dc_params=None,
-                      feedback=None) -> bytes:
-    """Compress a container with TPU bulk match finding.
+def encode_stream_device(data: bytes, page_size: int = 65536,
+                         batch_pages: int = 64, dc_params=None,
+                         feedback=None) -> bytes:
+    """Compress a container with device bulk match finding.
 
     The LZ77 parse (the encode hot loop) runs batched on the device; the
     per-page entropy coding and swizzle serialization run in the native C++
@@ -443,7 +443,7 @@ def encode_stream_tpu(data: bytes, page_size: int = 65536,
     preconditioning (condition gather + delta on device).
 
     feedback(msg_type, text) -> bool is called once per device batch;
-    returning True aborts with errors.Aborted (the TPU-path analog of the
+    returning True aborts with errors.Aborted (the device-path analog of the
     reference's BROTLIG_Feedback_Proc)."""
     from ..format import constants as C
     from ..format.errors import Aborted, MessageType

@@ -1,6 +1,6 @@
 """Fully-device Brotli-G page serialization (the encode_pack kernel).
 
-Completes the TPU encode pipeline (SURVEY §7 step 4): given bulk-greedy
+Completes the device encode pipeline (SURVEY §7 step 4): given bulk-greedy
 commands (ops/encode.py::find_commands), this packs whole compressed pages
 on the device — histograms, prefix codes, the exact 32-lane round-robin
 schedule and the self-describing size table — with no sequential bit
@@ -23,7 +23,7 @@ writing anywhere:
   32-bit words; per-stream word values come from a wraparound-safe
   prefix-sum-and-difference over the sorted contributions, not scatters.
 
-Decoded by all four decoders (oracle, native, TPU, and the reference SDK's
+Decoded by all four decoders (oracle, native, device, and the reference SDK's
 own decoder in tools/reference_oracle).
 """
 from __future__ import annotations
@@ -86,8 +86,8 @@ def _lengths_from_hist(hist, total):
     # allocation (round 5): ONE sort by count, then each pass shortens
     # the count-ordered prefix whose cumulative widening cost fits the
     # slack — ~40 ops instead of the 48-pick argmax loop's ~1800 (the
-    # serializer's single largest op-count block; XLA per-op overhead is
-    # the q1 encode bound on this host). A symbol can shorten once per
+    # serializer's single largest op-count block). A symbol can shorten
+    # once per
     # pass, so repeats recover the old loop's multi-shortenings.
     units = jnp.where(lens > 0, jnp.int32(1) << (15 - lens), 0)
     slack = (1 << 15) - jnp.sum(units, axis=1)
@@ -692,9 +692,7 @@ def pack_pages_device(pages, in_sizes, ins, cpy, dist, ncmds,
     # per position: is it a literal (inside an insert region or the tail)?
     # covering command: starts are nondecreasing, so a log-depth
     # searchsorted gives the last command with start <= pos (ties pick
-    # the largest index, matching the old scatter-max semantics) —
-    # scatters are ~serial on TPU (0.15us/element, ~80ms per [P,16K]
-    # batch), round 4
+    # the largest index, matching the old scatter-max semantics)
     starts_m = jnp.where(valid, starts, jnp.int32(1) << 29)
     cmd_of = jnp.clip(jax.vmap(
         lambda a, q: jnp.searchsorted(a, q, side="right"))(
@@ -1083,10 +1081,10 @@ def encode_pages_device(pages_np, in_sizes_np, page_size: int,
     return blobs
 
 
-def encode_stream_tpu_full(data: bytes, page_size: int = 65536,
-                           batch_pages: int = 64,
-                           dc_params=None, feedback=None,
-                           quality: int = 11) -> bytes:
+def encode_stream_device_full(data: bytes, page_size: int = 65536,
+                              batch_pages: int = 64,
+                              dc_params=None, feedback=None,
+                              quality: int = 11) -> bytes:
     """Container encode with BOTH match finding and serialization on device
     (the native packer is not involved). `dc_params` enables BCn
     preconditioning: the condition gather + per-page delta also run on

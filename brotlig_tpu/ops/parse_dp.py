@@ -1,11 +1,12 @@
-"""Device optimal parse (windowed DP) — the TPU analog of Zopfli.
+"""Device optimal parse (windowed DP) — the data-parallel analog of Zopfli.
 
 The reference encoder's ratio comes from brotli's q11 optimal parse
 (reference PageEncoder.cpp:87-147 wraps BrotliCreateHqZopfliBackwardReferences):
 a shortest path over literal/match transitions under a cost model fit to
 the previous pass. The native twin here is
 native/brotlig_encode.cpp::ParseOptimal — inherently sequential (each
-dp[i] depends on dp[i-1]). This module is the TPU-first reformulation:
+dp[i] depends on dp[i-1]). This module is the data-parallel
+reformulation:
 
 * pass 1: the bulk-greedy parse (ops/encode.py) supplies command/literal/
   distance histograms; the cost model mirrors what the device serializer
@@ -113,7 +114,6 @@ def build_cost_model(pages, in_sizes, ins, cpy, dist, ncmds, base_len,
     cov = ins + cpy
     starts = jnp.cumsum(cov, axis=1) - cov
     # covering command via searchsorted over the nondecreasing starts
-    # (replaces scatter-max+cummax; scatters are ~serial on TPU — r4)
     starts_m = jnp.where(valid, starts, jnp.int32(1) << 29)
     cmd_of = jnp.clip(jax.vmap(
         lambda a, q: jnp.searchsorted(a, q, side="right"))(

@@ -10,7 +10,7 @@ schedule that replaces the reference's atomic work queue per SURVEY §5.8);
 each process decodes its subset on its local devices; the ordered gather is
 by construction — every output keeps its archive index. Cross-host traffic
 is zero for the codec itself (pages are independent); only the optional
-final concatenation over DCN/ICI uses `multihost_utils.process_allgather`.
+final concatenation across hosts uses `multihost_utils.process_allgather`.
 On this single-host machine the same code path runs with nprocs=1; the
 scaling test shards over the virtual CPU mesh instead.
 """
@@ -142,7 +142,8 @@ def decode_archives_batched(blobs: Sequence[bytes],
     independent streams in one dispatch (BrotliGCompute.hlsl:1755-1882,
     SURVEY §2.12.4); here pages from all archives are pooled into the same
     fixed-size device batches regardless of archive boundaries, so small
-    archives amortize like big ones. Outputs keep archive order.
+    archives amortize like big ones. Outputs keep archive order. The
+    platform picks the phase-A route (ops.decode.resolve_route).
     """
     from ..format.headers import parse_container
     from ..ops.decode import decode_pages, max_cmds_for
@@ -167,17 +168,12 @@ def decode_archives_batched(blobs: Sequence[bytes],
                 (ai, i, int(info.offsets[i]), int(info.sizes[i]),
                  info.page_out_sizes[i]))
 
-    from ..ops.pallas_decode import stream_words_hint
     for ps, jobs in jobs_by_psize.items():
         W = ps // 4 + 8
         mc = max_cmds_for(ps)
         # similar-size pages decode in lockstep (same rule as
-        # decode_stream_jax); hints route the batch to the Pallas kernels
+        # decode_stream_jax)
         jobs.sort(key=lambda j: j[3])
-        w_hint = (max(j[3] for j in jobs) + 3) // 4
-        s_hint = stream_words_hint(
-            [(blobs[ai][off: off + 96], sz)
-             for (ai, _i, off, sz, _po) in jobs])
         for c0 in range(0, len(jobs), batch_pages):
             group = jobs[c0: c0 + batch_pages]
             rows = group + [group[0]] * (batch_pages - len(group)) \
@@ -189,7 +185,7 @@ def decode_archives_batched(blobs: Sequence[bytes],
                 in_sizes[r] = sz
             pages_out, isdelta = decode_pages(
                 jnp.asarray(arr.view(np.uint32).reshape(len(rows), W)),
-                jnp.asarray(in_sizes), ps, mc, w_hint, s_hint)
+                jnp.asarray(in_sizes), ps, mc)
             pages_np = np.asarray(pages_out)
             isdelta_np = np.asarray(isdelta)
             for r, (ai, i, off, sz, posz) in enumerate(group):

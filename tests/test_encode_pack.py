@@ -6,7 +6,7 @@ jax = pytest.importorskip("jax")
 
 from brotlig_tpu import native
 from brotlig_tpu.ops.encode_pack import (encode_pages_device,
-                                         encode_stream_tpu_full)
+                                         encode_stream_device_full)
 from brotlig_tpu.refimpl.codec import decode as py_decode
 from brotlig_tpu.refimpl.page_decoder import decode_page
 
@@ -44,7 +44,7 @@ class TestDevicePack:
 
     def test_stream_roundtrip_all_decoders(self):
         data = make_data("text", 150_000, seed=5)
-        blob = encode_stream_tpu_full(data, page_size=32768)
+        blob = encode_stream_device_full(data, page_size=32768)
         assert py_decode(blob) == data
         assert native.decode(blob) == data
         from brotlig_tpu.ops.decode import decode_stream_jax
@@ -55,5 +55,5 @@ class TestDevicePack:
         if not _ensure_oracle():
             pytest.skip("no reference oracle")
         data = make_data("text", 100_000, seed=6)
-        blob = encode_stream_tpu_full(data, page_size=32768)
+        blob = encode_stream_device_full(data, page_size=32768)
         assert ref_decode(blob, tmp_path) == data

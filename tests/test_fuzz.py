@@ -55,38 +55,21 @@ class TestFuzz:
 
     def test_tpu_never_crashes(self, blob):
         from brotlig_tpu.ops.decode import decode_stream_jax
-        # Route through the XLA wavefront (the fuzz target is the shared
-        # host-side stream validation + decode robustness): corrupt
-        # payloads produce data-dependent bucket shapes, and each new
-        # shape costs ~20s of interpret-mode Pallas compile on CPU.
-        # A small pallas-route sample runs in test_tpu_pallas_route_fuzz.
+        # The fuzz target is the shared host-side stream validation +
+        # device decode robustness, on the default (XLA, here) route.
         rng = np.random.default_rng(2)
         # batch_pages=1 pins the batch shape: corrupted page counts and
         # truncations then share one compiled program per words-bucket
         for c in corruptions(blob, rng, 32):
             try:
-                decode_stream_jax(c, batch_pages=1, variant="xla")
-            except (BrotligError, ValueError, IndexError):
-                pass
-
-    def test_tpu_pallas_route_fuzz(self, blob):
-        """A small deterministic corruption sample through the Pallas
-        route itself (payload-byte flips that survive header validation),
-        bounding interpret-mode compile count on CPU."""
-        from brotlig_tpu.ops.decode import decode_stream_jax
-        for t, val in ((200, 0x00), (500, 0xFF), (1200, 0x55),
-                       (3000, 0xA5)):
-            b = bytearray(blob)
-            b[t] = val
-            try:
-                decode_stream_jax(bytes(b), batch_pages=4)
+                decode_stream_jax(c, batch_pages=1, route="xla")
             except (BrotligError, ValueError, IndexError):
                 pass
 
     def test_tpu_targeted_header_corruptions(self, blob):
-        """Deterministic high-value corruption targets for the TPU route:
-        stream header fields, page header byte, size-table region, and
-        the Huffman table area of page 0 (XLA route, see above)."""
+        """Deterministic high-value corruption targets for the device
+        route: stream header fields, page header byte, size-table region,
+        and the Huffman table area of page 0 (XLA route, see above)."""
         from brotlig_tpu.format.headers import StreamHeader
         from brotlig_tpu.ops.decode import decode_stream_jax
         payload0 = 8 + 4 * int.from_bytes(blob[2:4], "little")
@@ -117,9 +100,49 @@ class TestFuzz:
                     pass  # header rejects — the cheap, valuable case
                 try:
                     decode_stream_jax(bytes(b), batch_pages=1,
-                                      variant="xla")
+                                      route="xla")
                 except (BrotligError, ValueError, IndexError):
                     pass
+
+    def test_triton_route_corrupt_pages_stay_in_their_rows(self):
+        """Corrupt pages through the Triton phase A (Pallas interpreter)
+        and phase B: nothing crashes, and the valid pages batched beside
+        them still decode exactly, so a corrupt page's reads and stores
+        stay inside its own rows."""
+        from brotlig_tpu.format import constants as C
+        from brotlig_tpu.ops.decode import decode_pages, max_cmds_for
+        from brotlig_tpu.refimpl.page_encoder import encode_page
+        from test_ops_decode import batch
+        ps = C.MIN_PAGE_SIZE
+        datas = [make_data(k, 3000, seed=40 + i)
+                 for i, k in enumerate(["text", "structured"])]
+        comps = [encode_page(d, is_last=True) for d in datas]
+        rng = np.random.default_rng(4)
+        for _ in range(3):
+            bad = [corrupt_page(c, rng) for c in comps]
+            words, sizes = batch([comps[0], bad[0], comps[1], bad[1]], ps)
+            out, _ = decode_pages(words, sizes, ps, max_cmds_for(ps),
+                                  route="triton", interpret=True)
+            out = np.asarray(out)
+            assert out.shape == (4, ps)
+            assert out[0, :len(datas[0])].tobytes() == datas[0]
+            assert out[2, :len(datas[1])].tobytes() == datas[1]
+
+
+def corrupt_page(comp, rng):
+    """One compressed page with flipped bytes, a noise burst, or cut
+    short."""
+    b = bytearray(comp)
+    kind = rng.integers(0, 3)
+    if kind == 0:
+        for _ in range(4):
+            b[rng.integers(0, len(b))] ^= int(rng.integers(1, 256))
+    elif kind == 1:
+        i = int(rng.integers(0, len(b) - 16))
+        b[i: i + 16] = rng.integers(0, 256, 16, np.uint8).tobytes()
+    else:
+        b = b[: rng.integers(4, len(b))]
+    return bytes(b)
 
 
 class TestPageTableValidation:

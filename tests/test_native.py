@@ -153,11 +153,11 @@ class TestFeedbackFastPaths:
         from brotlig_tpu.format.errors import Aborted
         data = make_data("text", 40_000, seed=18)
         calls = []
-        out = api.encode(data, page_size=32768, backend="tpu",
+        out = api.encode(data, page_size=32768, backend="device",
                          feedback=lambda t, m: calls.append(m) and False)
         assert calls and api.decode(out) == data
         with pytest.raises(Aborted):
-            api.encode(data, page_size=32768, backend="tpu",
+            api.encode(data, page_size=32768, backend="device",
                        feedback=lambda t, m: True)
 
 

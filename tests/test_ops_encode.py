@@ -1,4 +1,4 @@
-"""TPU bulk-greedy encoder: command validity and end-to-end roundtrips."""
+"""Device bulk-greedy encoder: command validity and end-to-end roundtrips."""
 import numpy as np
 import pytest
 
@@ -6,7 +6,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from brotlig_tpu import native
-from brotlig_tpu.ops.encode import encode_stream_tpu, find_commands
+from brotlig_tpu.ops.encode import encode_stream_device, find_commands
 from brotlig_tpu.refimpl.codec import decode as py_decode
 
 from test_roundtrip import make_data
@@ -59,7 +59,7 @@ class TestFindCommands:
     def test_empty_and_tiny(self):
         for n in (0, 1, 3, 4, 5):
             data = make_data("text", n, seed=2)
-            blob = encode_stream_tpu(data)
+            blob = encode_stream_device(data)
             assert py_decode(blob) == data
 
 
@@ -70,26 +70,26 @@ class TestStreamTpuEncode:
     ])
     def test_roundtrip_both_decoders(self, kind, n):
         data = make_data(kind, n, seed=n + 3)
-        blob = encode_stream_tpu(data)
+        blob = encode_stream_device(data)
         assert py_decode(blob) == data
         assert native.decode(blob) == data
 
     def test_tpu_decodes_tpu_encoded(self):
         from brotlig_tpu.ops.decode import decode_stream_jax
         data = make_data("text", 100_000, seed=9)
-        assert decode_stream_jax(encode_stream_tpu(data)) == data
+        assert decode_stream_jax(encode_stream_device(data)) == data
 
     def test_api_backend_tpu(self):
         import brotlig_tpu
         data = make_data("text", 80_000, seed=10)
-        blob = brotlig_tpu.encode(data, backend="tpu")
+        blob = brotlig_tpu.encode(data, backend="device")
         assert brotlig_tpu.decode(blob, backend="cpu") == data
 
     def test_ratio_not_catastrophic(self):
         data = make_data("text", 200_000, seed=11)
-        tpu = len(encode_stream_tpu(data))
+        dev = len(encode_stream_device(data))
         cpu = len(native.encode(data))
-        assert tpu <= cpu * 1.5, (tpu, cpu)
+        assert dev <= cpu * 1.5, (dev, cpu)
 
 
 class TestRatioRegression:
@@ -99,17 +99,17 @@ class TestRatioRegression:
 
     def test_device_full_ratio_floors(self):
         from test_roundtrip import make_data
-        from brotlig_tpu.ops.encode_pack import encode_stream_tpu_full
+        from brotlig_tpu.ops.encode_pack import encode_stream_device_full
         floors = {"text": 4.3, "structured": 1.35, "repetitive": 200.0}
         for kind, floor in floors.items():
             d = make_data(kind, 128 * 1024, seed=11)
-            blob = encode_stream_tpu_full(d, page_size=65536)
+            blob = encode_stream_device_full(d, page_size=65536)
             ratio = len(d) / len(blob)
             assert ratio >= floor, f"{kind}: {ratio:.2f}x < {floor}x"
 
     def test_hybrid_ratio_floors(self):
         from test_roundtrip import make_data
-        from brotlig_tpu.ops.encode import encode_stream_tpu
+        from brotlig_tpu.ops.encode import encode_stream_device
         from brotlig_tpu import native
         if not (native.available() and native.has_encoder()):
             import pytest
@@ -117,7 +117,7 @@ class TestRatioRegression:
         floors = {"text": 4.4, "repetitive": 500.0}
         for kind, floor in floors.items():
             d = make_data(kind, 128 * 1024, seed=11)
-            blob = encode_stream_tpu(d, page_size=65536)
+            blob = encode_stream_device(d, page_size=65536)
             ratio = len(d) / len(blob)
             assert ratio >= floor, f"{kind}: {ratio:.2f}x < {floor}x"
 

@@ -188,7 +188,7 @@ class TestEndToEnd:
 
 
 class TestDeviceEncode:
-    """Preconditioned encode on the TPU backends (ops/precondition.py::
+    """Preconditioned encode on the device backends (ops/precondition.py::
     preprocess_device feeding ops/encode.py and ops/encode_pack.py)."""
 
     def _texture(self, fmt, w, h, mips, seed=0, random=False):
@@ -212,7 +212,7 @@ class TestDeviceEncode:
         grad = (np.arange(size, dtype=np.int64) // 64) % 32
         return (base + grad).astype(np.uint8).tobytes()
 
-    @pytest.mark.parametrize("backend", ["tpu", "tpu-full"])
+    @pytest.mark.parametrize("backend", ["device", "device-full"])
     @pytest.mark.parametrize("swizzle,delta", [(False, False), (True, True)])
     def test_preconditioned_tpu_encode(self, backend, swizzle, delta):
         from brotlig_tpu import api
@@ -222,11 +222,11 @@ class TestDeviceEncode:
         blob = api.encode(data, page_size=C.MIN_PAGE_SIZE, dc_params=p,
                           backend=backend, quality=1)
         assert decode(blob) == data           # oracle decoder
-        assert api.decode(blob, backend="tpu") == data
+        assert api.decode(blob, backend="device") == data
         if delta:
             assert len(blob) < len(data)
 
-    @pytest.mark.parametrize("backend", ["tpu", "tpu-full"])
+    @pytest.mark.parametrize("backend", ["device", "device-full"])
     def test_preconditioned_raw_fallback(self, backend):
         # incompressible texture: pages store raw, which must hold the
         # conditioned NON-delta bytes (decoder skips delta on raw pages)
@@ -238,7 +238,7 @@ class TestDeviceEncode:
         blob = api.encode(data, page_size=C.MIN_PAGE_SIZE, dc_params=p,
                           backend=backend, quality=1)
         assert decode(blob) == data
-        assert api.decode(blob, backend="tpu") == data
+        assert api.decode(blob, backend="device") == data
 
     def test_preprocess_matches_oracle(self):
         # device preprocessing == oracle condition + per-page delta
@@ -258,7 +258,7 @@ class TestDeviceEncode:
             assert flags[i // C.MIN_PAGE_SIZE] == did
         assert work == bytes(exp)
 
-    @pytest.mark.parametrize("backend", ["cpu", "tpu", "tpu-full"])
+    @pytest.mark.parametrize("backend", ["cpu", "device", "device-full"])
     def test_geometry_mismatch_downgrades(self, backend):
         # params that do not describe the input: encoder must downgrade to
         # a plain (non-preconditioned) stream, like the reference

@@ -67,9 +67,9 @@ class TestReferenceDecodesOurStreams:
         assert ref_decode(py_encode(data), tmp_path) == data
 
     def test_tpu_encoder(self, tmp_path):
-        from brotlig_tpu.ops.encode import encode_stream_tpu
+        from brotlig_tpu.ops.encode import encode_stream_device
         data = make_data("structured", 100_000, seed=4)
-        assert ref_decode(encode_stream_tpu(data), tmp_path) == data
+        assert ref_decode(encode_stream_device(data), tmp_path) == data
 
     @pytest.mark.parametrize("kind,n", [
         ("text", 150_000),        # complex tables, run-coded storage
@@ -77,9 +77,9 @@ class TestReferenceDecodesOurStreams:
         ("zeros", 131072),        # trivial literal table (0-bit symbols)
     ])
     def test_tpu_full_encoder(self, kind, n, tmp_path):
-        from brotlig_tpu.ops.encode_pack import encode_stream_tpu_full
+        from brotlig_tpu.ops.encode_pack import encode_stream_device_full
         data = make_data(kind, n, seed=n + 5)
-        assert ref_decode(encode_stream_tpu_full(data), tmp_path) == data
+        assert ref_decode(encode_stream_device_full(data), tmp_path) == data
 
     def test_preconditioned(self, tmp_path):
         rng = np.random.default_rng(0)

@@ -1,4 +1,4 @@
-"""Parse-quality A/B: tpu-full encoder (greedy + windowed-DP q11 tier)
+"""Parse-quality A/B: device-full encoder (greedy + windowed-DP q11 tier)
 vs the native q11 encoder, per corpus kind — the BASELINE.md "device DP
 vs native q11" table generator.
 
@@ -24,7 +24,7 @@ jaxcache.enable()
 def main():
     from test_roundtrip import make_data
     from brotlig_tpu import native
-    from brotlig_tpu.ops.encode_pack import encode_stream_tpu_full
+    from brotlig_tpu.ops.encode_pack import encode_stream_device_full
     from brotlig_tpu.refimpl.codec import decode as oracle_decode
 
     kb = int(os.environ.get("AB_KB", "400"))
@@ -34,8 +34,8 @@ def main():
     for kind in kinds:
         data = make_data(kind, kb * 1024, seed=123)
         nat = native.encode(data, page_size=65536)
-        dev = encode_stream_tpu_full(data, page_size=65536, quality=11)
-        grd = encode_stream_tpu_full(data, page_size=65536, quality=1)
+        dev = encode_stream_device_full(data, page_size=65536, quality=11)
+        grd = encode_stream_device_full(data, page_size=65536, quality=1)
         assert oracle_decode(dev) == data, f"{kind}: device stream corrupt"
         rows.append({"kind": kind, "greedy": len(grd), "dp": len(dev),
                      "native_q11": len(nat),

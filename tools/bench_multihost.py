@@ -2,7 +2,7 @@
 
 Runs the same archive workload with 1, 2 and 4 worker processes (CPU
 backend, each process pinned to ONE core so per-process compute is
-constant across every point on this 4-core host) and reports wall time +
+constant across every point) and reports wall time +
 scaling efficiency T1 / (nproc * Tn). Multi-process runs use
 jax.distributed and finish with the real owned-bytes ordered all-gathers
 (`decode_archives_gather` / `encode_archives_gather`), so the measured
@@ -81,6 +81,8 @@ def run(nproc: int, blob_path: str, n_arch: int) -> float:
         wpath = f.name
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
+    # the workers stay on the CPU: a JAX process reserves most of a GPU's
+    # memory, so several processes on one card fail (one per card at most)
     env["JAX_PLATFORMS"] = "cpu"
     procs = []
     t0 = time.perf_counter()
